@@ -1,4 +1,4 @@
-"""Pipeline API — the reference's 18 exported operations, TPU-native.
+"""Pipeline API — the reference's 18 exported operations, on device.
 
 Mapping to the reference exports (NAMESPACE:3-20):
 

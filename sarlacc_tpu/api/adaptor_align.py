@@ -1,6 +1,6 @@
 """``adaptor_align`` — align both adaptors to every read, canonical orientation.
 
-TPU re-design of the reference's main entry point (R/adaptorAlign.R:7-77):
+Batched re-design of the reference's main entry point (R/adaptorAlign.R:7-77):
 the FASTQ streams in fixed-size chunks; per chunk the first/last
 ``tolerance`` bases (back reverse-complemented) are batch-aligned against
 adaptor1 and adaptor2 in both orientations — two stacked device launches
@@ -67,9 +67,9 @@ def adaptor_align(
     # Each chunk launches STACKED (front+back interleavings), so the device
     # batch is 2x the chunk size; stride at number//2 to keep every launch
     # at the `number`-read width the demux/score paths already validate.
-    # (One unchunked 500k in-memory batch asked the dirs path for a ~130 GB
-    # cost-plane gather, and a 2e5-wide stacked dirs launch hung the remote
-    # service — R/adaptorAlign.R:26-36 streams for the same reason.)
+    # (One unchunked 500k in-memory batch would ask the dirs path for a
+    # ~130 GB cost-plane gather; R/adaptorAlign.R:26-36 streams for the
+    # same reason.)
     stride = max(1, number // 2)
     if reads is not None:
         if len(reads) > stride:

@@ -1,6 +1,6 @@
 """Base encodings and padded batch containers.
 
-The TPU framework works on dense, padded integer tensors instead of the
+The device code works on dense, padded integer tensors instead of the
 reference's per-read C strings (``src/DNA_input.cpp``).  Bases are coded
 
     A=0  C=1  G=2  T=3  N=4  '-'=5

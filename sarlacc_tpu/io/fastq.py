@@ -1,6 +1,6 @@
 """Streaming FASTQ I/O.
 
-TPU-native replacement for the reference's ShortRead usage: chunked streaming
+Replacement for the reference's ShortRead usage: chunked streaming
 (``FastqStreamer``, R/adaptorAlign.R:26-36) bounds memory for arbitrarily
 large files, and reservoir sampling (``FastqSampler``,
 R/tuneAlignment.R:21-23) backs the calibration paths.  Gzip transparently

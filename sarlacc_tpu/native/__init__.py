@@ -1,7 +1,7 @@
 """Native host library: on-demand g++ build + ctypes bindings.
 
-The shared object is compiled once per source hash into
-``~/.cache/sarlacc_tpu`` (or ``SARLACC_NATIVE_CACHE``); if no compiler is
+The shared object is compiled once per source hash into ``_build`` beside
+this file (or ``SARLACC_NATIVE_CACHE``); if no compiler is
 available every entry point reports unavailable and callers fall back to the
 Python implementations.
 """
@@ -31,8 +31,8 @@ _TRIED = False
 
 
 def _build() -> ctypes.CDLL | None:
-    cache = os.environ.get(
-        "SARLACC_NATIVE_CACHE", os.path.expanduser("~/.cache/sarlacc_tpu")
+    cache = os.environ.get("SARLACC_NATIVE_CACHE") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "_build"
     )
     os.makedirs(cache, exist_ok=True)
     with open(_SRC, "rb") as fh:

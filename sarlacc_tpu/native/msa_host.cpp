@@ -1,6 +1,6 @@
 // Native host kernels for the MSA and clustering hot paths.
 //
-// TPU-native framework layout: device kernels (JAX/Pallas) do the DP volume;
+// Framework layout: device kernels (JAX/XLA) do the DP volume;
 // these C++ routines cover the sequential host-side graph work the reference
 // also kept native (SeqAn's T-Coffee internals, src/cluster_umis.cpp):
 //

@@ -1,6 +1,6 @@
 """Batched quality-aware affine-gap alignment on device (JAX/XLA).
 
-TPU-first re-design of the reference's central DP engine
+Batched re-design of the reference's central DP engine
 (``src/reference_align.cpp`` in MarioniLab/sarlacc): instead of one read at a
 time through a scalar C++ loop, thousands of padded reads advance through the
 DP **together**, one reference column per step of a ``lax.scan``.  Within a
@@ -13,7 +13,7 @@ unrolls to ``V[i] = max_{k<i} (max(M,H)[k] - open_v - (i-1-k) * ext_v)`` (the
 ``V[k-1]`` contributions are dominated because ``open_v >= ext_v``), i.e. a
 shifted prefix-max computed with ``lax.cummax`` — no sequential dependence
 along the read axis.  The scan therefore runs |reference| steps of pure
-vector work, which XLA fuses into a handful of VPU ops per column.
+elementwise work, which XLA fuses into a few kernels per column.
 
 Semantics mirror the reference exactly (cited as file:line into
 /root/reference):
@@ -72,8 +72,8 @@ def prepare_reads(batch, tables):
 
     Padded positions get quality index 0; they never reach live DP cells
     because row i only consumes read positions < i <= length.  Codes and
-    quality indices travel as int8 (values <= 93) — host->device transfer to
-    the remote chip is the scarce resource — and are upcast on device.
+    quality indices travel as int8 (values <= 93), a quarter of the int32
+    upload, and are upcast on device.
     """
     codes = jnp.asarray(batch.codes, dtype=jnp.int8)
     if batch.quals is not None:
@@ -133,9 +133,6 @@ def dp_align(
     # costm[m, n, i] = match_tab[m, qidx[n, i]].
     costm = jnp.take(match_tab, qidx, axis=1)  # [4, N, L]
     costmm = jnp.take(mismatch_tab, qidx, axis=1)  # [4, N, L]
-    # One-hot of observed base codes over the 5-letter alphabet (pad maps to
-    # all-zero, scoring as mismatch; rows past `length` are dead anyway).
-    code_onehot = (codes[..., None] == jnp.arange(5)[None, None, :])  # [N,L,5]
 
     idx_row = jnp.arange(L1, dtype=jnp.int32)[None, :]  # [1, L1]
     neg = _neg_inf(dtype)
@@ -157,10 +154,12 @@ def dp_align(
         vgo = jnp.where(last, jnp.zeros((), dtype), go)
         vge = jnp.where(last, jnp.zeros((), dtype), ge)
 
-        # Cost row for this reference position.
+        # Cost row for this reference position.  Whether each observed base
+        # matches is a boolean lookup of its code (the pad code 5 never
+        # matches; rows past `length` are dead anyway).
         cm = jax.lax.dynamic_index_in_dim(costm, mode - 1, 0, keepdims=False)
         cmm = jax.lax.dynamic_index_in_dim(costmm, mode - 1, 0, keepdims=False)
-        sel = jnp.einsum("nlb,b->nl", code_onehot.astype(dtype), matched_row.astype(dtype)) > 0.5
+        sel = jnp.concatenate([matched_row, jnp.zeros(1, jnp.bool_)])[codes]
         cost = jnp.where(sel, cm, cmm)  # [N, L]
 
         # Diagonal candidate (reference_align.cpp:157-160).

@@ -2,7 +2,7 @@
 
 Every heavy reference function takes ``BPPARAM`` (R/adaptorAlign.R:8,
 R/tuneAlignment.R:8, R/getAdaptorThresholds.R:6, R/barcodeAlign.R:4,
-R/qualityAlign.R:4, R/multiReadAlign.R:7, R/extractSubseq.R:5); the TPU
+R/qualityAlign.R:4, R/multiReadAlign.R:7, R/extractSubseq.R:5); the device
 equivalent is a ``jax.sharding.Mesh`` accepted by each API function.  The
 kernels they reach are all batch-parallel, so sharding is one decision —
 "place batch-major arrays with the leading axis split over the mesh" — made

@@ -2,7 +2,7 @@
 
 The reference's parallel layer explicitly accommodates multi-machine
 backends (SnowParam/BatchtoolsParam, /root/reference/R/adaptorAlign.R:127-129
-and DESCRIPTION:12); the TPU-native equivalent (SURVEY.md §5.8, §7.2(7)) is
+and DESCRIPTION:12); the device equivalent (SURVEY.md §5.8, §7.2(7)) is
 ``jax.distributed`` + a global device mesh + host-sharded FASTQ input:
 
 1. every host calls :func:`init_distributed` (coordinator address via args
@@ -14,8 +14,8 @@ and DESCRIPTION:12); the TPU-native equivalent (SURVEY.md §5.8, §7.2(7)) is
 3. batches become global arrays with
    :func:`jax.make_array_from_process_local_data` over the global mesh
    (:func:`global_mesh`), and the existing shard_map collectives
-   (``parallel.mesh``) run unchanged — psum histograms ride ICI/DCN instead
-   of the driver-side concatenation;
+   (``parallel.mesh``) run unchanged — psum histograms cross devices and
+   hosts instead of the driver-side concatenation;
 4. results that must be host-complete (grouping, MSA strings) come back
    through the deterministic shuffle/merge in ``parallel.shuffle`` whose
    output is byte-identical to the single-host run (tests/test_distributed.py
@@ -50,9 +50,8 @@ def init_distributed(
     """Initialize ``jax.distributed`` once; returns (process_id, n_processes).
 
     Arguments fall back to ``SARLACC_COORDINATOR`` / ``SARLACC_NUM_PROCS`` /
-    ``SARLACC_PROC_ID`` and then to JAX's own auto-detection (TPU pods
-    discover their topology without any of them).  Single-process runs
-    (nothing configured) skip initialization entirely and report (0, 1).
+    ``SARLACC_PROC_ID``.  Single-process runs (nothing configured) skip
+    initialization entirely and report (0, 1).
     """
     global _INITIALIZED
     import jax
@@ -70,10 +69,6 @@ def init_distributed(
                 num_processes=num_processes,
                 process_id=process_id,
             )
-            _INITIALIZED = True
-        elif os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") > 0:
-            # Multi-worker TPU slice: auto-detection path.
-            jax.distributed.initialize()
             _INITIALIZED = True
     return jax.process_index(), jax.process_count()
 

@@ -2,14 +2,14 @@
 
 The reference's only parallelism is share-nothing data parallelism over reads
 via BiocParallel (R/adaptorAlign.R:126-134 sharder + bpmapply dispatch); the
-honest TPU mapping (SURVEY.md §2.3, §5.8) is:
+device mapping (SURVEY.md §2.3, §5.8) is:
 
-* **reads axis (dp)** — batches sharded over the mesh with
+* **reads axis (dp)** — batches sharded over a 1-D mesh with
   ``jax.sharding.NamedSharding``; every kernel here is batch-parallel so XLA
   partitions the column-scan DP without communication;
 * **within-kernel parallelism** — the read-position axis of each DP column
   (this workload's "sequence parallelism");
-* **collectives over ICI** — ``psum``/``all_gather`` replace the reference's
+* **collectives** — ``psum``/``all_gather`` replace the reference's
   driver-side list concatenation where results must be merged globally:
   score histograms for threshold calibration, cross-shard UMI distance
   blocks, gathered consensus outputs.
@@ -26,10 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 from ..ops.align import dp_align
 
@@ -117,7 +114,7 @@ def sharded_adaptor_scores(
         score1 = jnp.where(reversed_, s_rstart, s_start)
         score2 = jnp.where(reversed_, s_rend, s_end)
 
-        # Global per-adaptor score histograms via psum over ICI.  Padding
+        # Global per-adaptor score histograms via psum.  Padding
         # rows (batch rounded up to the mesh size) have zero-length ends and
         # are dropped from the histogram.
         lo, hi = hist_range

@@ -14,7 +14,7 @@ so before them every pre-group must live wholly on one shard (SURVEY.md
   the assignment and reshards batch-major arrays so shard ``s`` holds
   exactly its groups' reads (padded to the common per-shard budget).  When
   the inputs are device arrays sharded over the mesh this ``device_put`` is
-  an all-to-all resharding over ICI; from host memory it is a scatter of
+  an all-to-all resharding between devices; from host memory it is a scatter of
   each shard's slice.
 * :func:`sharded_umi_group` — the distributed ``umi_group``: per-shard
   neighbour search + greedy clustering over the shard's own pre-groups,

@@ -4,7 +4,7 @@ This is a faithful, slow NumPy/Python transcription of the semantics of
 ``src/reference_align.cpp`` in the reference package — including its exact
 tie-breaking rules, run-length direction encoding, float64 evaluation order
 (repeated subtraction for gap extensions) and the IUPAC quirks.  It anchors
-property tests for the TPU kernels and serves as the bit-parity oracle.
+property tests for the device kernels and serves as the bit-parity oracle.
 
 Key semantics (cited into the reference):
 

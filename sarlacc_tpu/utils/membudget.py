@@ -1,11 +1,11 @@
 """Device-derived memory budgets for the MSA pipeline.
 
-The round-3 constants (2 GiB library table, 1 GiB segment window, 3 GiB
-pair-DP in-flight window) were tuned to a 16 GB v5e chip; a different chip
-or a concurrent allocation would shift the OOM boundary silently.  Budgets
-now derive from ``jax.devices()[0].memory_stats()`` at first use, with the
-original constants as the fallback when the backend exposes no stats (CPU
-tests, interpret mode).
+Budgets are fractions of the device memory that
+``jax.devices()[0].memory_stats()`` reports at first use, with fixed
+constants (2 GiB library table, 1 GiB segment window, 3 GiB pair-DP
+in-flight window) as the fallback when the backend exposes no stats (CPU
+tests).  The fractions were chosen on earlier hardware and have not yet
+been measured on the GPU.
 
 Probed once per process: the pipeline's own allocations must not shrink
 later budgets mid-run (the windows are sized against the chip, not against
@@ -20,11 +20,11 @@ _FREE_BYTES: int | None = None
 _PROBED = False
 _GIVEN: dict[str, int] = {}
 
-#: Fixed HBM reserve subtracted from the chip's capacity: headroom for XLA
+#: Fixed reserve subtracted from the device's capacity: headroom for XLA
 #: scratch, the runtime's own buffers, and fragmentation.  A constant (not
 #: instantaneous ``bytes_in_use``) keeps every budget a pure function of the
 #: chip, so launch shapes / compile-cache keys don't depend on which pipeline
-#: stage probes first (ADVICE r4).
+#: stage probes first.
 _RESERVE_BYTES = 2 << 30
 
 
@@ -47,7 +47,7 @@ def _probe() -> int | None:
 
 
 def device_memory_budget(name: str, fraction: float, fallback: int) -> int:
-    """``fraction`` of the device's free HBM at first probe, else ``fallback``.
+    """``fraction`` of the device's free memory at first probe, else ``fallback``.
 
     Floors at 64 MiB so a nearly-full chip degrades to small windows rather
     than zero-size ones.  Each derived budget is recorded for

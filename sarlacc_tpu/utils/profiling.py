@@ -75,7 +75,7 @@ class PipelineProfiler:
 import os as _os
 
 #: SARLACC_STAGE_LOG=1 prints each stage's wall time as it completes —
-#: live observability for long remote-TPU runs.
+#: live observability for long runs.
 _STAGE_LOG = bool(_os.environ.get("SARLACC_STAGE_LOG"))
 
 _GLOBAL = PipelineProfiler()

@@ -1,7 +1,7 @@
 """Probe MSA wall-clock scaling AND host RSS growth at bench-shaped scale.
 
-The 500k vignette bench (r5) died at its timeout with 112 GB host RSS and
-~3x-superlinear MSA wall; this probe reproduces both at a diagnosable size:
+A vignette-scale (~500k-read) run can grow host RSS and MSA wall time
+superlinearly; this probe measures both at a diagnosable size:
 bench-shaped groups (variable lengths 400-700, variable sizes 8-14) across
 n_groups, logging RSS and the profiler stage split per slice.
 

@@ -75,7 +75,7 @@ def main():
         def shard_fn(codes, qidx, lens):
             s = local_scores(codes, qidx, lens)
             live = (lens > 0).astype(jnp.float32)
-            # Global score histogram over ICI (no gathering of reads).
+            # Global score histogram by collective (no gathering of reads).
             edges = jnp.linspace(-50.0, 50.0, 21)
             idx = jnp.clip(jnp.searchsorted(edges, s), 0, 21 - 1)
             hist = jnp.zeros(21, jnp.float32).at[idx].add(live)

@@ -230,35 +230,126 @@ def test_dual_umi_end_to_end(mock_fastq):
     flat = sorted(int(i) for g in groups for i in g)
     assert flat == list(range(len(aligned)))
 
-def test_segment_path_matches_loop_path(aligned, mock_fastq, monkeypatch):
-    """barcode_align / tune_alignment take a one-launch multi-segment kernel
-    on TPU (VERDICT r4 #6); force that path (interpret mode) on CPU and pin
-    it to the per-launch path's output."""
-    barcodes = ["AAAA", "CCCC", "GGGG", "TTTT"]
-    bc = aligned["adaptor1"]["subseq"]["Sub1"]
+def _reference_barcode_loop(seqs, quals, barcodes, go, ge):
+    """The reference's sequential best/second-best walk over barcodes
+    (R/barcodeAlign.R:27-38), scored by the float64 oracle.  Also returns
+    the [B, n] per-barcode scores."""
+    from sarlacc_tpu.refimpl.align import ReferenceAlign
+
+    n = len(seqs)
+    current = np.full(n, -np.inf)
+    next_best = np.full(n, -np.inf)
+    ids = np.full(n, -1, np.int64)
+    per = []
+    for b, bc in enumerate(barcodes):
+        ra = ReferenceAlign(bc.upper(), go, ge)
+        sc = np.asarray([ra.align(s, q, local=False) for s, q in zip(seqs, quals)])
+        per.append(sc)
+        better = sc > current
+        next_best = np.where(better, current, np.maximum(next_best, sc))
+        ids = np.where(better, b, ids)
+        current = np.where(better, sc, current)
+    return ids, current, next_best, np.stack(per)
+
+
+def _observed_barcodes(rng, barcodes, n=40):
+    """Barcode-region reads: noisy copies of the barcodes plus random ones."""
+    seqs, quals = [], []
+    for i in range(n):
+        if i % 4 == 3:
+            s = "".join(rng.choice(list("ACGT"), int(rng.integers(4, 15))))
+        else:
+            s = list(barcodes[int(rng.integers(0, len(barcodes)))])
+            for _ in range(int(rng.integers(0, 3))):
+                s[int(rng.integers(0, len(s)))] = str(rng.choice(list("ACGTN")))
+            s = "".join(s)
+        seqs.append(s)
+        quals.append("".join(chr(int(c)) for c in rng.integers(35, 75, len(s))))
+    return seqs, quals
+
+
+@pytest.mark.parametrize(
+    "barcodes",
+    [
+        ["ACGTACGT", "TTGGCCAA", "GATCGATC", "CCCCAAAA"],
+        # Duplicated barcode: an exact tie the first index must win.
+        ["ACGTACGT", "TTGGCCAA", "ACGTACGT", "GGGGCCCC"],
+        # The demux shape: twelve 12 bp barcodes.
+        [
+            "".join(np.random.default_rng(b).choice(list("ACGT"), 12))
+            for b in range(12)
+        ],
+    ],
+    ids=["distinct", "duplicate", "twelve"],
+)
+def test_barcode_align_matches_reference_loop(rng, barcodes):
+    """barcode_align's device best/second-best (float32, one stacked
+    readback) against the per-barcode float64 reference loop."""
+    seqs, quals = _observed_barcodes(rng, barcodes)
+    got = st.barcode_align(SeqBatch.from_strings(seqs, quals), barcodes)
+    ids, best, second, per = _reference_barcode_loop(seqs, quals, barcodes, 5, 1)
+    # float32 device sums against float64 oracle sums of ~12 cells.
+    np.testing.assert_allclose(got["score"], best, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(
+        got["score"] - got["gap"], second, rtol=0, atol=1e-3
+    )
+    # Clear winners agree exactly; within float32 noise of a tie, the call
+    # must still hold the best score.
+    got_ids = np.asarray(got["barcode"])
+    clear = (best - second) > 1e-3
+    np.testing.assert_array_equal(got_ids[clear], ids[clear])
+    assert (per[got_ids, np.arange(len(seqs))] >= best - 1e-3).all()
+    # An exact tie (a duplicated barcode) goes to its first copy.
+    dup = [b for b, bc in enumerate(barcodes) if barcodes.index(bc) != b]
+    if dup:
+        assert not clear.all() and not np.isin(got_ids, dup).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tune_alignment_matches_reference_grid(mock_fastq, seed):
+    """The device grid search (4 penalty points) against the same search
+    scored by the float64 oracle (R/tuneAlignment.R:54-112)."""
+    from sarlacc_tpu.api.align_internal import resolve_strand
+    from sarlacc_tpu.api.tune import scramble_input
+    from sarlacc_tpu.io.fastq import read_fastq
+    from sarlacc_tpu.refimpl.align import ReferenceAlign
+
     fp, _ = mock_fastq
-    kw = dict(
-        filepath=fp, tolerance=60, number=20,
+    reads = read_fastq(fp).take(np.arange(16))
+    tol = 50
+    got = st.tune_alignment(
+        ADAPTOR1, ADAPTOR2, reads=reads, tolerance=tol, seed=seed,
         gap_op_range=(4, 5), gap_ext_range=(1, 2),
     )
-    loop_bc = st.barcode_align(bc, barcodes)
-    loop_tune = st.tune_alignment(ADAPTOR1, ADAPTOR2, **kw)
 
-    import sarlacc_tpu.ops.pallas_align as pa
+    front, back = reads.front_and_back(tol)
+    rng = np.random.default_rng(seed)
+    sfront = scramble_input(front, rng)
+    sback = scramble_input(back, rng)
 
-    monkeypatch.setattr(pa, "pallas_available", lambda: True)
-    orig_launch = pa._launch_segments
-    monkeypatch.setattr(
-        pa, "_launch_segments",
-        lambda *a, **k: orig_launch(*a, **{**k, "interpret": True}),
-    )
-    seg_bc = st.barcode_align(bc, barcodes)
-    seg_tune = st.tune_alignment(ADAPTOR1, ADAPTOR2, **kw)
+    def four(ra1, ra2, f, b):
+        fs, fq = f.seq_strings(), f.qual_strings()
+        bs, bq = b.seq_strings(), b.qual_strings()
+        return (
+            np.asarray([ra1.align(s, q) for s, q in zip(fs, fq)]),
+            np.asarray([ra2.align(s, q) for s, q in zip(bs, bq)]),
+            np.asarray([ra1.align(s, q) for s, q in zip(bs, bq)]),
+            np.asarray([ra2.align(s, q) for s, q in zip(fs, fq)]),
+        )
 
-    np.testing.assert_array_equal(seg_bc["barcode"], loop_bc["barcode"])
-    np.testing.assert_allclose(seg_bc["score"], loop_bc["score"], atol=2e-4)
-    np.testing.assert_allclose(seg_bc["gap"], loop_bc["gap"], atol=4e-4)
-    assert seg_tune["parameters"] == loop_tune["parameters"]
+    best_overlap, best_params, best_reads = 0.0, None, None
+    for go in (4, 5):
+        for ge in (1, 2):
+            ra1 = ReferenceAlign(ADAPTOR1, go, ge)
+            ra2 = ReferenceAlign(ADAPTOR2, go, ge)
+            _, real = resolve_strand(*four(ra1, ra2, front, back))
+            _, fake = resolve_strand(*four(ra1, ra2, sfront, sback))
+            cur = tied_overlap(real, fake)
+            if best_overlap < cur:
+                best_overlap = cur
+                best_params = {"gapOpening": go, "gapExtension": ge}
+                best_reads = real
+    assert got["parameters"] == best_params
     np.testing.assert_allclose(
-        seg_tune["scores"]["reads"], loop_tune["scores"]["reads"], atol=2e-4
+        got["scores"]["reads"], best_reads, rtol=0, atol=1e-3
     )

@@ -143,7 +143,7 @@ def test_error_messages():
 def test_flat_matches_padded_path(rng, monkeypatch):
     """The flat device layout (uint8 stream + device gather + device Phred
     chars) must reproduce the padded/mesh layout byte-for-byte, both modes,
-    across ragged widths, gaps, N and unknown chars (VERDICT r4 #3)."""
+    across ragged widths, gaps, N and unknown chars."""
     groups, quals = [], []
     for g, w in [(2, 5), (7, 33), (3, 129), (16, 17), (1, 9), (4, 64)]:
         aln = ["".join(rng.choice(list("ACGT-N"), w)) for _ in range(g)]

@@ -117,3 +117,64 @@ def test_query_maps_match_oracle(rng):
         s0, e0 = qm_d(0, len(ADAPTOR))
         assert 0 <= s0 <= e0 <= len(s)
     assert agree >= 13
+
+
+ADAPTOR47 = "ACGCTAGCATCAGTCNNNNCACAGCTACGANNNNNNNNCGTACGCAT"
+BARCODE = "ACGTTGCACGTA"
+
+
+def _device_inputs(rng, ref, n=37, minl=0, maxl=60):
+    """Reads with N bases, at the precision the device runs: float32 score
+    tables, as ``prepare_adaptor`` builds them."""
+    from sarlacc_tpu.api.align_internal import prepare_adaptor
+
+    seqs, quals = [], []
+    for _ in range(n):
+        ln = int(rng.integers(minl, maxl + 1))
+        seqs.append("".join(rng.choice(list("ACGTN"), ln)))
+        quals.append("".join(chr(int(c)) for c in rng.integers(35, 90, ln)))
+    ad = prepare_adaptor(ref)
+    codes, qidx, lengths = prepare_reads(SeqBatch.from_strings(seqs, quals), ad.tables)
+    return seqs, quals, ad, (codes, qidx, lengths)
+
+
+@pytest.mark.parametrize("local", [True, False])
+@pytest.mark.parametrize("go,ge", [(5.0, 1.0), (2.0, 3.0)])
+@pytest.mark.parametrize("ref", [ADAPTOR47, BARCODE], ids=["adaptor", "barcode"])
+def test_float32_scores_match_oracle(rng, ref, go, ge, local):
+    seqs, quals, ad, (codes, qidx, lengths) = _device_inputs(rng, ref)
+    scores, _ = dp_align(
+        codes, qidx, lengths, ad.modes, ad.matched, ad.match_tab,
+        ad.mismatch_tab, go, ge, local=local, need_directions=False,
+    )
+    assert scores.dtype == jnp.float32
+    ra = ReferenceAlign(ref, go, ge)
+    want = [ra.align(s, q, local=local) for s, q in zip(seqs, quals)]
+    # float32 sums of log-quality costs against float64 ones, over at most
+    # ~100 cells per read.
+    np.testing.assert_allclose(np.asarray(scores), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("minl,maxl", [(0, 40), (40, 120)], ids=["short", "long"])
+def test_device_walk_query_maps_match_oracle(rng, minl, maxl):
+    """qmap_walk_device's maps against the reference walk; co-optimal
+    divergence from float32 tie-breaks is tolerated, as the reference's own
+    tests tolerate Biostrings' (test-adaptor-align.R:38-40)."""
+    from sarlacc_tpu.ops.backtrack import qmap_walk_device
+
+    seqs, quals, ad, (codes, qidx, lengths) = _device_inputs(
+        rng, ADAPTOR47, n=24, minl=minl, maxl=maxl
+    )
+    _, dirs = dp_align(
+        codes, qidx, lengths, ad.modes, ad.matched, ad.match_tab,
+        ad.mismatch_tab, 5.0, 1.0, local=True, need_directions=True,
+    )
+    is_match, dp_row = (np.asarray(x) for x in qmap_walk_device(dirs, lengths))
+    ra = ReferenceAlign(ADAPTOR47, 5, 1)
+    agree = 0
+    for i, (s, q) in enumerate(zip(seqs, quals)):
+        ra.align(s, q, local=True)
+        want = ra.fill_map().mapping
+        got = list(zip(is_match[i].tolist(), dp_row[i].tolist()))
+        agree += got == [(bool(m), int(r)) for m, r in want]
+    assert agree >= len(seqs) - 2

@@ -226,7 +226,7 @@ def test_candidate_pairs_native_matches_numpy(rng):
 def test_tile_kernel_wide_matches_int16():
     """The wide (int32) tile readback is value-identical to the int16 path
     for short sequences; long sequences (>16383) must select it to avoid
-    wraparound (ADVICE r1)."""
+    wraparound."""
     from sarlacc_tpu.ops.levenshtein import _lev2_tile_kernel
     import jax.numpy as jnp
 

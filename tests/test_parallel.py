@@ -14,8 +14,11 @@ def entry_mod():
     import importlib.util
     import sys
 
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py"
+        "__graft_entry__", os.path.join(root, "__graft_entry__.py")
     )
     mod = importlib.util.module_from_spec(spec)
     sys.modules["__graft_entry__"] = mod
